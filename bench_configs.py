@@ -18,7 +18,7 @@ line per config.
 
 Usage:  python bench_configs.py [--genome-size N] [--coverage C]
         [--error E] [--workdir DIR] [--keep]
-(real TPU by default; KEVLAR_PLATFORM=cpu for the host backend)
+(default JAX backend; KEVLAR_PLATFORM=cpu for the host backend)
 """
 
 import argparse

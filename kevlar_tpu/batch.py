@@ -13,10 +13,8 @@ import numpy as np
 from kevlar_tpu import dna
 
 
-# Reads per device batch (8 batches are stacked per dispatch in count/novel).
-# Remote or tunneled devices pay a round-trip per dispatch, so larger batches
-# trade a little padding for proportionally fewer round trips — raise via
-# KEVLAR_BATCH_READS when per-dispatch latency dominates (docs/performance.md).
+# Reads per device batch (8 batches are stacked per dispatch in count/novel);
+# KEVLAR_BATCH_READS overrides it.
 def _parse_batch_size():
     raw = os.environ.get('KEVLAR_BATCH_READS', '4096')
     try:
@@ -168,7 +166,7 @@ def prefetch_iter(iterable, depth=4):
     """Iterate ``iterable`` on a background thread, ``depth`` items ahead.
 
     Hides host-side parse/marshal latency behind downstream (device)
-    work — the TPU-side analog of khmer's threaded ReadParser overlap
+    work — the device-side analog of khmer's threaded ReadParser overlap
     (reference SURVEY §3.1).  Exceptions from the producer re-raise at
     the consumption point; the thread is a daemon, so an abandoned
     iterator never blocks interpreter exit.  KEVLAR_PREFETCH=0 disables

@@ -93,7 +93,7 @@ def align_partitions(jobs_by_partition, match=1, mismatch=2, gapopen=5,
                      gapextend=0, mesh=None):
     """Align EVERY partition's (target, query) jobs as one global batch.
 
-    The TPU-native replacement for the reference's N parallel ``call``
+    The device replacement for the reference's N parallel ``call``
     shard processes (workflows/mark-I/Snakefile:345-356): instead of
     scattering partitions over processes, the (contig x cutout) pairs of
     all partitions concatenate into one size-bucketed device batch, and

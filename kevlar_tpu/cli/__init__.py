@@ -384,7 +384,7 @@ def mains():
 
 
 def parser():
-    bubbletext = 'kevlar-tpu: reference-free variant discovery, TPU-native'
+    bubbletext = 'kevlar-tpu: reference-free variant discovery on JAX'
     subcommandstr = '", "'.join(sorted(SUBPARSER_FUNCS.keys()))
     p = argparse.ArgumentParser(
         description=bubbletext,
@@ -413,6 +413,9 @@ def parse_args(arglist=None):
     if args.logfile and args.logfile != '-':
         kevlar_tpu.logstream = kevlar_tpu.open(args.logfile, 'w')
     kevlar_tpu.teelog = args.tee
+    if args.cmd is not None:
+        kevlar_tpu.plog('[kevlar::{}] {}'.format(
+            args.cmd, kevlar_tpu.device_banner()))
     if getattr(args, 'profile', None):
         import atexit
         import jax

@@ -5,7 +5,7 @@ optional mask (skip masked k-mers, or count *only* masked k-mers), optional
 hash-space banding, khmer-style memory->tablesize sizing, FPR bailout, and
 extension-typed sketch persistence.
 
-TPU design: reads are marshalled into padded [B, L] base batches
+Device design: reads are marshalled into padded [B, L] base batches
 (:mod:`kevlar_tpu.batch`) and counted by one jitted scatter kernel per batch
 — the thread-parallel ReadParser loop of the reference becomes a single
 device program over batched reads.
@@ -186,8 +186,8 @@ def consume_seqfile(sketch, seqfiles, mask=None, consume_masked=False,
                     and mask_ok \
                     and os.environ.get('KEVLAR_PACKED_WIRE', '1') != '0':
                 # 2-bit wire format: 3.7x less host->device traffic
-                # (default on; TPU-validated bit-identical — set
-                # KEVLAR_PACKED_WIRE=0 to send raw base codes); masked
+                # (default on; bit-identical — set KEVLAR_PACKED_WIRE=0
+                # to send raw base codes); masked
                 # counting screens against the mask tables on-device
                 from kevlar_tpu.batch import pack_bases
                 from kevlar_tpu.ops import sketch_ops

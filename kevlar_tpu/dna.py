@@ -1,7 +1,7 @@
 """DNA sequence primitives: encoding, reverse complement, canonical k-mer hashing.
 
-TPU-first design notes
-----------------------
+Device-first design notes
+-------------------------
 Reads are handled as fixed-shape ``uint8`` arrays of 2-bit base codes
 (A=0, C=1, G=2, T=3, anything else >=4), mirroring the encoding used by the
 reference aligner bridge (``/root/reference/src/align.c:20-36``).  K-mers are
@@ -9,8 +9,8 @@ never materialised as strings on the hot path; instead each window of k bases
 is packed into a pair of 32-bit words (low word = last 16 bases, high word =
 the leading bases), the canonical (strand-neutral) representative is selected
 by lexicographic comparison, and two independent 32-bit hashes are derived via
-murmur3-style finalisers.  Everything is 32-bit so the same code runs natively
-on TPU (no 64-bit emulation on device).
+murmur3-style finalisers.  Everything is 32-bit, so the device code needs
+no 64-bit integers (JAX's default) and stays op-for-op identical to numpy.
 
 The canonicality invariant ``hash(kmer) == hash(revcom(kmer))`` matches the
 contract the reference relies on (``/root/reference/kevlar/tests/test_novel.py``

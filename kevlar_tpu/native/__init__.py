@@ -1,9 +1,10 @@
 """Native (C++) runtime components: FASTX parsing, alignment, assembly.
 
 Built on demand (``python -m kevlar_tpu.native.build`` or the module-level
-:func:`build`) into ``libkevlar_native.so`` next to this file.  All consumers
-fall back to the pure-Python/numpy implementations when the library is not
-built, so the native layer is an accelerator, never a hard dependency.
+:func:`build`) from the sources next to this file into
+``libkevlar_native.so`` beside them.  Consumers fall back to the
+pure-Python/numpy implementations when the library cannot be built or
+loaded; :func:`load` then says why on stderr, once per process.
 """
 
 import ctypes
@@ -18,16 +19,30 @@ _LIBPATH = os.path.join(_HERE, 'libkevlar_native.so')
 _SOURCES = ['fastx.cpp', 'align.cpp', 'asm.cpp']
 
 _lib = None
+_failure = None
+
+
+class BuildError(RuntimeError):
+    """The compiler refused the native sources; carries its message."""
 
 
 def build(verbose=False):
-    """Compile the native library. Returns the library path."""
+    """Compile the native library. Returns the library path.
+
+    Compiles to a temporary name and renames it into place, so processes
+    building concurrently never load a partly written library.
+    """
+    tmp = '{}.{}.tmp'.format(_LIBPATH, os.getpid())
     cmd = ['g++', '-O3', '-shared', '-fPIC', '-std=c++17',
-           '-o', _LIBPATH] + [os.path.join(_HERE, s) for s in _SOURCES] + \
+           '-o', tmp] + [os.path.join(_HERE, s) for s in _SOURCES] + \
           ['-lz']
     if verbose:
         print('[kevlar_tpu.native] ' + ' '.join(cmd), file=sys.stderr)
-    subprocess.check_call(cmd)
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise BuildError('{} exited with {}:\n{}'.format(
+            ' '.join(cmd), proc.returncode, proc.stderr.strip()))
+    os.replace(tmp, _LIBPATH)
     return _LIBPATH
 
 
@@ -40,15 +55,25 @@ def _stale():
 
 
 def load(auto_build=True):
-    """Load (building if needed) the native library; None if unavailable."""
-    global _lib
+    """Load (building if needed) the native library; None if unavailable.
+
+    A failed build or load is reported on stderr with the compiler's or
+    loader's message the first time, and not retried in this process.
+    """
+    global _lib, _failure
     if _lib is not None:
         return _lib
+    if _failure is not None:
+        return None
     try:
         if _stale() and auto_build:
             build()
         lib = ctypes.CDLL(_LIBPATH)
-    except (OSError, subprocess.CalledProcessError):
+    except (OSError, BuildError) as exc:
+        _failure = exc
+        print('[kevlar_tpu.native] native library unavailable; the '
+              'pure-Python parser, assembler and aligner run instead: '
+              '{}: {}'.format(type(exc).__name__, exc), file=sys.stderr)
         return None
     lib.kt_fastx_open.restype = ctypes.c_void_p
     lib.kt_fastx_open.argtypes = [ctypes.c_char_p]

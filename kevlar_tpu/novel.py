@@ -343,8 +343,8 @@ def novel(casestream, casecounts, controlcounts, ksize=31, abundscreen=None,
                 np.asarray(hit_abunds)[:, :n_hits], np.asarray(discard))
 
     # stacked dispatch: consecutive same-shape batches are screened 8 at a
-    # time in a single device program (dispatch latency paid once per stack —
-    # decisive over remote-compile tunnels, still a win locally).  Only
+    # time in a single device program (dispatch overhead paid once per
+    # stack).  Only
     # consecutive runs are stacked so the output order stays identical to
     # the input order.  Dispatches are pipelined: up to MAX_INFLIGHT stacks
     # are enqueued on the device (jax dispatch is asynchronous) before the

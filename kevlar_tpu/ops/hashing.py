@@ -1,7 +1,6 @@
 """JAX mirror of the canonical k-mer hashing in :mod:`kevlar_tpu.dna`.
 
-All arithmetic is uint32 so it runs natively on the TPU VPU (no 64-bit
-emulation).  Must stay op-for-op identical to the numpy implementation;
+All arithmetic is uint32 (no 64-bit integers on the device).  Must stay op-for-op identical to the numpy implementation;
 ``tests/test_hashing.py`` cross-checks the two on random sequences.
 """
 

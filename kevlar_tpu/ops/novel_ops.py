@@ -175,37 +175,29 @@ def count_and_screen_stack_packed(case_packed, case_bad, ctrl_packed,
     """The whole count+novel device pipeline as ONE compiled program.
 
     Counts every sample's [NB, B, ceil(L/4)] 2-bit packed read stack into a
-    fresh Count-Min sketch (lax.scan per sample), packs the per-sample
-    tables into interleaved uint32 words, then screens the case stack with
-    device-side hit compaction — the reference's count+novel stages
-    (count.py:18-99 + novel.py:95-176) in a single dispatch, so remote-link
-    dispatch latency is paid once for the whole pipeline.
+    fresh 8-bit Count-Min sketch (a lax.scan per sample into an int32
+    accumulator, as :func:`kevlar_tpu.ops.sketch_ops.consume_batch_stack`),
+    packs the per-sample tables into interleaved uint32 words, then screens
+    the case stack with device-side hit compaction — the reference's
+    count+novel stages (count.py:18-99 + novel.py:95-176) in a single
+    dispatch.
 
     Returns ((hit_idx, hit_abunds, n_hits, discard, skip) stacked per batch,
     case_tables, ctrl_tables).
     """
     from kevlar_tpu.ops import hashing as _h
 
-    accumulate = sketch_ops._use_accumulator()
-
     def consume_stack(packed_stack, bad_stack):
-        def body(carry, inp):
+        def body(acc, inp):
             packed, badmask = inp
             bases = _h.unpack_bases(packed, badmask, L)
             h1, h2, valid = _h.kmer_hashes(bases, ksize)
-            if accumulate:
-                return sketch_ops._scatter_hashes_i32(
-                    carry, h1, h2, valid, tablesize), None
-            return sketch_ops._consume_hashes(
-                carry, h1, h2, valid, maxcount), None
+            return sketch_ops._scatter_hashes_i32(
+                acc, h1, h2, valid, tablesize), None
 
-        if accumulate:
-            acc = jnp.zeros((ntables, tablesize), jnp.int32)
-            acc, _ = jax.lax.scan(body, acc, (packed_stack, bad_stack))
-            return sketch_ops._pack_tables_i32(acc, maxcount, 8)
-        tables = jnp.zeros((ntables, tablesize), jnp.uint8)
-        tables, _ = jax.lax.scan(body, tables, (packed_stack, bad_stack))
-        return tables
+        acc = jnp.zeros((ntables, tablesize), jnp.int32)
+        acc, _ = jax.lax.scan(body, acc, (packed_stack, bad_stack))
+        return sketch_ops._pack_tables_i32(acc, maxcount, 8)
 
     case_tables = consume_stack(case_packed, case_bad)
     ctrl_tables = tuple(consume_stack(p, b)

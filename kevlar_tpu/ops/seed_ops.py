@@ -5,9 +5,9 @@ subprocess, /root/reference/kevlar/localize.py:131-144) is an exact lookup
 of canonical seed codes against every seed-sized window of the reference
 genome.  The host path (:class:`kevlar_tpu.reference.SeedIndex`) keeps the
 sorted 64-bit fold keys in RAM and binary-searches with numpy.  This module
-provides the TPU path for *very large references*: the sorted key array
-lives in HBM as two uint32 planes (hi/lo words — TPUs have no native
-64-bit lanes) and queries are answered by a vectorised lexicographic binary
+provides the device path for *very large references*: the sorted key array
+lives in device memory as two uint32 planes (hi/lo words — JAX runs
+without 64-bit integers by default) and queries are answered by a vectorised lexicographic binary
 search, one fused jit dispatch for the whole seed batch.
 
 For references beyond a single chip's HBM, :func:`seed_ranges_sharded`

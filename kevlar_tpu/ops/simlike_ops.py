@@ -8,7 +8,7 @@ inheritance max, all batched over a padded ``[N, K]`` bundle tensor.
 
 The host scalar/numpy implementations in :mod:`kevlar_tpu.simlike` remain
 the golden reference (they use exact float64 ``math.lgamma``); this path
-trades ~1e-6 relative precision (float32 on TPU) for device residency and
+trades ~1e-6 relative precision (float32 on the device) for device residency and
 is opt-in via ``KEVLAR_SIMLIKE_DEVICE=1``.  Parity is pinned in
 tests/test_simlike.py (tolerance + rank agreement).
 """

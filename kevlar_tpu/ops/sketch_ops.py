@@ -106,7 +106,7 @@ def gather_counts_multi(packed_words, nsamples, h1, h2):
     """Min-over-tables counts for every sample at once: uint8 [S, ...].
 
     ``packed_words`` comes from :func:`pack_sample_tables`.  Gathers one
-    uint32 per (word, table) probe and splits bytes on the VPU.
+    uint32 per (word, table) probe and splits out the bytes.
     """
     per_sample = [None] * nsamples
     for w, packed in enumerate(packed_words):
@@ -135,20 +135,6 @@ def _apply_mask_screen(mask_tables, h1, h2, valid, threshold, consume_masked,
     return valid & (mcnt <= jnp.uint8(threshold))
 
 
-def _use_accumulator():
-    """Pick the stacked-consume strategy for the current backend.
-
-    Carrying an int32 accumulator through the scan (saturate once per
-    stack) avoids the per-batch O(tablesize) histogram+min passes — a
-    measured ~25% win for the CPU-backend workflow.  On TPU the fused
-    per-batch form is faster (measured 0.85s vs 1.05s on the count+novel
-    bench); both produce identical counts (min-at-end == incremental
-    saturation for monotone adds).
-    """
-    import jax
-    return jax.default_backend() == 'cpu'
-
-
 def planar_index(idx, counter_bits, nbytes):
     """Bucket index -> position in the PLANAR unpacked row.
 
@@ -158,11 +144,10 @@ def planar_index(idx, counter_bits, nbytes):
     then all the high ones: planar position
     ``(idx % cpb) * nbytes + idx // cpb``, where ``nbytes`` is the packed
     row width (:func:`packed_width`).  A bucket-ordered unpack would
-    materialise a [nbytes, cpb] intermediate whose minor dimension the
-    TPU tiled layout pads to 128 (a 64x/16x memory blowup — 30.7 GB for
-    a 120M-bucket 4-bit table); the planar form is flat 1-D, layout-safe,
-    and the index remap is a bijection so counts are identical.  Any
-    change here must change :func:`unpack_row_planar` /
+    materialise a [nbytes, cpb] intermediate with a tiny minor dimension,
+    which a tiled device layout may pad many times over; the planar form
+    is flat 1-D, and the index remap is a bijection so counts are
+    identical.  Any change here must change :func:`unpack_row_planar` /
     :func:`pack_row_planar` in lockstep.
     """
     if counter_bits == 8:
@@ -245,10 +230,7 @@ def _scatter_hashes_i32(acc, h1, h2, valid, tablesize, counter_bits=8):
         idx = hashing.table_index(h1f, h2f, t, tablesize).astype(jnp.int32)
         idx = _planar_index(idx, counter_bits, nbytes)
         # invalid/masked k-mers go OUT OF BOUNDS and are dropped by the
-        # scatter instead of adding 0 — identical counts; measured
-        # cost-neutral on TPU v5e (XLA scatter charges per input element,
-        # tools/drop_scatter_probe.py) but cleaner and a real win on
-        # backends that skip dropped updates
+        # scatter instead of adding 0: identical counts, and no write
         idx = jnp.where(vf, idx, planar_size)
         acc = acc.at[t, idx].add(1, mode='drop')
     return acc
@@ -259,10 +241,9 @@ def _consume_hashes(tables, h1, h2, valid, maxcount, counter_bits=8,
     """Saturating-add each valid hash into every table; returns new tables.
 
     For sub-byte counters the persistent row stays bit-packed (khmer memory
-    parity); it is unpacked PLANAR, updated, and repacked per batch — all
-    elementwise VPU work plus the planar index remap, small next to the
-    scatter itself, and free of the [nbytes, cpb] tiled-layout blowup
-    (see :func:`_planar_index`).
+    parity); it is unpacked PLANAR, updated, and repacked per batch —
+    elementwise work plus the planar index remap (see
+    :func:`_planar_index`).
     """
     ntables = tables.shape[0]
     if counter_bits == 8:
@@ -277,10 +258,7 @@ def _consume_hashes(tables, h1, h2, valid, maxcount, counter_bits=8,
         idx = hashing.table_index(h1f, h2f, t, tablesize).astype(jnp.int32)
         idx = _planar_index(idx, counter_bits, nbytes)
         # invalid/masked k-mers scatter out of bounds (mode='drop') rather
-        # than adding 0: identical counts; measured cost-neutral on TPU
-        # v5e (XLA scatter charges per input element,
-        # tools/drop_scatter_probe.py) but cleaner and a real win on
-        # backends that skip dropped updates
+        # than adding 0: identical counts, and no write
         idx = jnp.where(vf, idx, planar_size)
         inc = jnp.zeros((planar_size,), dtype=jnp.int32).at[idx].add(
             1, mode='drop')
@@ -336,16 +314,18 @@ def consume_batch_stack(tables, bases_stack, ksize, maxcount, numbands=None,
                         mask_tablesize=None):
     """Count a [NB, B, L] stack of read batches in ONE device dispatch.
 
-    Scans over the leading axis — the compiled program is the same size as a
-    single-batch consume, but per-dispatch latency is paid once per stack
-    instead of once per batch (decisive on high-latency links, still a win
-    on local hardware).
+    Scans over the leading axis with an int32 accumulator (4x the packed
+    table bytes) that saturates once per stack — identical counts to
+    per-batch saturation (min-at-end equals per-increment saturation for
+    monotone adds), and one O(tablesize) pass per stack instead of one per
+    batch: 4.9x faster than per-batch saturation at the helium sample
+    table on an H100 (docs/performance.md), and the strategy the CPU
+    backend already used.
     """
     if counter_bits == 8:
         tablesize = tables.shape[1]
-    accumulate = _use_accumulator()
 
-    def body(carry, bases):
+    def body(acc, bases):
         h1, h2, valid = hashing.kmer_hashes(bases, ksize)
         if numbands:
             valid = valid & ((h1 & jnp.uint32(numbands - 1))
@@ -354,18 +334,12 @@ def consume_batch_stack(tables, bases_stack, ksize, maxcount, numbands=None,
             valid = _apply_mask_screen(mask_tables, h1, h2, valid,
                                        mask_threshold, consume_masked,
                                        mask_bits, mask_tablesize)
-        if accumulate:
-            return _scatter_hashes_i32(carry, h1, h2, valid, tablesize,
-                                       counter_bits), None
-        return _consume_hashes(carry, h1, h2, valid, maxcount,
-                               counter_bits, tablesize), None
+        return _scatter_hashes_i32(acc, h1, h2, valid, tablesize,
+                                   counter_bits), None
 
-    if accumulate:
-        acc = _unpack_tables_i32(tables, counter_bits)
-        acc, _ = jax.lax.scan(body, acc, bases_stack)
-        return _pack_tables_i32(acc, maxcount, counter_bits)
-    new_tables, _ = jax.lax.scan(body, tables, bases_stack)
-    return new_tables
+    acc = _unpack_tables_i32(tables, counter_bits)
+    acc, _ = jax.lax.scan(body, acc, bases_stack)
+    return _pack_tables_i32(acc, maxcount, counter_bits)
 
 
 @functools.partial(
@@ -381,13 +355,12 @@ def consume_batch_stack_packed(tables, packed_stack, badmask_stack, L, ksize,
                                mask_threshold=0, consume_masked=False,
                                counter_bits=8, tablesize=None, mask_bits=8,
                                mask_tablesize=None):
-    """Stacked consume over the 2-bit wire format (3.7x less H2D traffic);
-    bases are unpacked on-device per scan step."""
+    """:func:`consume_batch_stack` over the 2-bit wire format (3.7x less
+    host-to-device traffic); bases are unpacked on-device per scan step."""
     if counter_bits == 8:
         tablesize = tables.shape[1]
-    accumulate = _use_accumulator()
 
-    def body(carry, inp):
+    def body(acc, inp):
         packed, badmask = inp
         bases = hashing.unpack_bases(packed, badmask, L)
         h1, h2, valid = hashing.kmer_hashes(bases, ksize)
@@ -398,18 +371,12 @@ def consume_batch_stack_packed(tables, packed_stack, badmask_stack, L, ksize,
             valid = _apply_mask_screen(mask_tables, h1, h2, valid,
                                        mask_threshold, consume_masked,
                                        mask_bits, mask_tablesize)
-        if accumulate:
-            return _scatter_hashes_i32(carry, h1, h2, valid, tablesize,
-                                       counter_bits), None
-        return _consume_hashes(carry, h1, h2, valid, maxcount,
-                               counter_bits, tablesize), None
+        return _scatter_hashes_i32(acc, h1, h2, valid, tablesize,
+                                   counter_bits), None
 
-    if accumulate:
-        acc = _unpack_tables_i32(tables, counter_bits)
-        acc, _ = jax.lax.scan(body, acc, (packed_stack, badmask_stack))
-        return _pack_tables_i32(acc, maxcount, counter_bits)
-    new_tables, _ = jax.lax.scan(body, tables, (packed_stack, badmask_stack))
-    return new_tables
+    acc = _unpack_tables_i32(tables, counter_bits)
+    acc, _ = jax.lax.scan(body, acc, (packed_stack, badmask_stack))
+    return _pack_tables_i32(acc, maxcount, counter_bits)
 
 
 @functools.partial(jax.jit,

@@ -1,7 +1,7 @@
 """khmer/oxli-compatible sketch layer: bit-exact interop with the reference.
 
-The TPU-native :class:`kevlar_tpu.sketch.Sketch` uses its own all-uint32
-canonical hash (fast on the VPU) and an npz on-disk format.  This module
+The device :class:`kevlar_tpu.sketch.Sketch` uses its own all-uint32
+canonical hash and an npz on-disk format.  This module
 provides the *compatibility* counterpart: sketches that reproduce khmer's
 Counttable / SmallCounttable / Nodetable **byte-for-byte** — same hash
 function, same prime table sizes, same binary file format — so that
@@ -31,7 +31,7 @@ pins as the output of a masked count of ``trio-proband.fq.gz``):
   trailing uint64le bigcount-entry count (0: bigcounts unsupported here).
 
 This engine is host-side (vectorized numpy) by design: it exists for
-interop and parity, not throughput — the TPU path is ``Sketch``.
+interop and parity, not throughput — the device path is ``Sketch``.
 """
 
 import gzip

@@ -37,12 +37,17 @@ def make_mesh(n_data=None, n_shard=None, devices=None):
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None, **kwargs):
-    """Initialize multi-host execution (DCN across hosts, ICI within).
+    """Initialize multi-host execution.
 
-    Thin wrapper over ``jax.distributed.initialize``; with no arguments the
-    standard cluster environment variables are used.  After initialization,
-    ``make_mesh`` spans every host's devices and the sharded pipeline runs
-    unchanged — the mesh program is identical on 1 host and N hosts.
+    Within one host the GPUs talk over NVLink, all to all at one rate, and
+    XLA hands the mesh's collectives to NCCL; across hosts NCCL goes over
+    the network.  The mesh follows the algorithm, not a physical topology.
+    Thin wrapper over ``jax.distributed.initialize``: pass
+    ``coordinator_address`` (e.g. ``localhost:<port>``), ``num_processes``
+    and ``process_id`` unless a cluster environment supplies them.  After
+    initialization, ``make_mesh`` spans every host's devices and the
+    sharded pipeline runs unchanged — the mesh program is identical on 1
+    host and N hosts.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -1,4 +1,4 @@
-"""Count-Min sketch engine: the TPU-native replacement for khmer's tables.
+"""Count-Min sketch engine: the device replacement for khmer's tables.
 
 Implements the khmer API surface the reference actually uses (SURVEY.md §2.1
 "khmer API surface"; /root/reference/kevlar/sketch.py): allocate/load/save/
@@ -483,10 +483,15 @@ def _load_npz_mmap(filename):
             elen = int.from_bytes(hdr[28:30], 'little')
             data_off = info.header_offset + 30 + nlen + elen
             fh.seek(data_off)
+            # public header readers only: numpy's private
+            # _read_array_header is gone from newer releases
+            readers = {(1, 0): np.lib.format.read_array_header_1_0,
+                       (2, 0): np.lib.format.read_array_header_2_0}
             try:
                 version = np.lib.format.read_magic(fh)
-                shape, fortran, dtype = \
-                    np.lib.format._read_array_header(fh, version)
+                if version not in readers:
+                    return None
+                shape, fortran, dtype = readers[version](fh)
             except (ValueError, OSError):
                 return None
             if dtype.hasobject:
@@ -543,7 +548,7 @@ def allocate_from_memory(ksize, memory, num_tables=4, counter_bits=8,
     """khmer-parity sizing: tablesize = memory/ntables * buckets_per_byte.
 
     The 'device' backend (jitted scatter) is the right default on every
-    platform: on TPU it is the fast path, and even on the CPU backend the
+    platform: on an accelerator it is the fast path, and even on the CPU backend the
     XLA scatter beats numpy's per-batch bincount at production tablesizes
     (a bincount materialises an O(tablesize) histogram per batch — measured
     4x slower end-to-end on the 1 Mb trio benchmark).  The 'host' backend

@@ -7,7 +7,7 @@ memory it spills records into name-hashed temp buckets and merges one
 bucket at a time, emitting each bucket's reads in sorted-name order with
 annotations sorted by offset.
 
-In the fully TPU-native pipeline banding is normally replaced by a
+In the device pipeline banding is normally replaced by a
 hash-sharded device sketch (kevlar_tpu.parallel) and this stage is a no-op;
 it is kept for offline/multi-pass workflows.
 """

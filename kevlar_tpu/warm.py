@@ -1,7 +1,6 @@
 """``warm``: pre-compile the pipeline's device programs into the cache.
 
-Cold-start compiles dominate small runs (a count+novel program pair costs
-minutes over a remote-compile link).  The persistent XLA compile cache
+Cold-start compiles dominate small runs.  The persistent XLA compile cache
 (enabled by ``kevlar_tpu.__init__``) makes every compile a one-time cost —
 this command pays those costs ahead of data, by driving the REAL stage
 code (count.consume_seqfile, novel.novel, the batched aligner) over tiny

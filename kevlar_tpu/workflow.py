@@ -79,6 +79,7 @@ def run_mark1(config, logstream=None):
     def path(name):
         return os.path.join(outdir, name)
 
+    kevlar_tpu.plog('[workflow]', kevlar_tpu.device_banner())
     timer = kevlar_tpu.Timer()
     timer.start()
 

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""kevlar-tpu: TPU-native reference-free trio variant discovery."""
+"""kevlar-tpu: reference-free trio variant discovery on JAX."""
 
 from setuptools import setup, find_packages
 
 setup(
     name='kevlar-tpu',
     version='0.1.0',
-    description='TPU-native reference-free de novo variant discovery '
-                'in trios (JAX/XLA/Pallas)',
+    description='Reference-free de novo variant discovery in trios '
+                '(JAX/XLA)',
     long_description=open('README.md').read(),
     long_description_content_type='text/markdown',
     packages=find_packages(exclude=('tests',)),

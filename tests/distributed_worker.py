@@ -4,7 +4,7 @@ Usage: python -m tests.distributed_worker PROCESS_ID NUM_PROCESSES PORT OUTDIR
 
 Each process contributes 4 CPU devices; the global ('data', 'shard') mesh
 spans all processes, so the sharded-sketch collectives cross the process
-boundary exactly as they would cross DCN between hosts.  Process 0 writes
+boundary exactly as they would cross the network between hosts.  Process 0 writes
 the gathered counts to OUTDIR/counts.npy.
 """
 

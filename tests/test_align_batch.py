@@ -2,6 +2,8 @@
 
 import random
 
+import pytest
+
 from kevlar_tpu.ops.align import align_scalar
 from kevlar_tpu.ops.align_ops import align_batch
 
@@ -44,7 +46,7 @@ def test_batch_aligner_mixed_lengths():
 def test_mesh_sharded_align_matches_host():
     """Sharding the alignment batch axis across the 8-device CPU mesh must
     give (score, cigar, strand) identical to the host scalar aligner —
-    the sharded call path's correctness pin (the TPU-native analog of the
+    the sharded call path's correctness pin (the device analog of the
     reference's N parallel call shards, Snakefile:345-356)."""
     import random
     from kevlar_tpu.dna import revcom
@@ -166,3 +168,31 @@ def test_batch_cigar_decode_matches_scalar_reference():
     for b in range(B):
         want = _cigar_from_ops(ops[b], int(exit_i[b]), int(exit_j[b]))
         assert got[b] == want, (b, got[b], want)
+
+
+def test_unknown_align_engine_is_refused(monkeypatch):
+    """A removed or misspelt KEVLAR_ALIGN_BACKEND fails at start-up with
+    the list of engines that exist."""
+    from kevlar_tpu.ops import align
+    monkeypatch.setenv('KEVLAR_ALIGN_BACKEND', 'pallas')
+    with pytest.raises(ValueError, match="'pallas'; expected one of "
+                                         'native, numpy, scalar, device'):
+        align._pick_default()
+
+
+def test_batch_engine_is_chosen_per_platform(monkeypatch):
+    """Unset, the batched-alignment engine is the measured choice for the
+    JAX platform; a platform nobody measured is an error, not a default;
+    KEVLAR_ALIGN_BACKEND overrides either way."""
+    import jax
+    from kevlar_tpu.ops import align
+    monkeypatch.delenv('KEVLAR_ALIGN_BACKEND', raising=False)
+    assert align._use_device_batch() is \
+        align._DEVICE_BATCH_BY_PLATFORM['cpu']
+    monkeypatch.setattr(jax, 'default_backend', lambda: 'rocm')
+    with pytest.raises(ValueError, match="platform 'rocm'"):
+        align._use_device_batch()
+    monkeypatch.setenv('KEVLAR_ALIGN_BACKEND', 'device')
+    assert align._use_device_batch() is True
+    monkeypatch.setenv('KEVLAR_ALIGN_BACKEND', 'native')
+    assert align._use_device_batch() is False

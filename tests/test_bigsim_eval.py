@@ -1,6 +1,6 @@
 """Pin the bigsim evaluation protocol (tools/bigsim_bench.py).
 
-The ACCURACY_BIGSIM artifact is only as trustworthy as its scorer; these
+The bigsim accuracy figures are only as trustworthy as their scorer; these
 tests pin the protocol mirrored from the reference's
 notebook/bigsim/evaluate.py: calls ranked by LIKESCORE, tolerance-10
 interval match against truth, first match wins (repeats are collisions),

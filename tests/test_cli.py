@@ -79,6 +79,20 @@ def test_cli_count_novel_roundtrip(tmp_path):
             assert ik.abund[1] == 0
 
 
+def test_stage_logs_jax_platform_first(tmp_path, capsys):
+    """Every stage's first log line names the JAX platform and device, so
+    a run that landed on an unintended backend shows in its log."""
+    rng = random.Random(3)
+    fq = str(tmp_path / 'reads.fq')
+    simdata.write_fastq(simdata.tiled_reads(simdata.make_genome(rng, 300),
+                                            80, 20, 'r'), fq)
+    kevlar_tpu.cli.main(['count', '-k', '21', '-M', '100K',
+                         str(tmp_path / 'reads.ct'), fq])
+    first = capsys.readouterr().err.splitlines()[0]
+    assert first.startswith('[kevlar::count] JAX '), first
+    assert ' on cpu: cpu x8' in first, first
+
+
 def test_cli_gentrio_and_mutate(tmp_path):
     rng = random.Random(7)
     genome = simdata.make_genome(rng, 3000)

@@ -2,7 +2,7 @@
 
 Spawns two OS processes, each contributing 4 CPU devices to one global
 ('data', 'shard') mesh; the sharded sketch's psum/pmin collectives cross the
-process boundary (Gloo — the DCN analog of multi-host TPU).  Counts must be
+process boundary (Gloo, standing in for a multi-host network).  Counts must be
 bit-identical to a single-device sketch of the same tablesize.
 """
 

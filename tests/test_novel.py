@@ -166,6 +166,57 @@ def test_fused_count_and_screen_matches_unfused():
     assert np.array_equal(np.asarray(sks[0].tables), np.asarray(case_tables))
 
 
+def test_fused_count_and_screen_matches_host_backend():
+    """count_and_screen_stack_packed's tables equal Sketch(backend='host')
+    counts of the same reads, and its hits are exactly the case k-mers
+    that pass casemin/ctrlmax on those host counts."""
+    import numpy as np
+    import jax.numpy as jnp
+    from kevlar_tpu import dna
+    from kevlar_tpu.batch import pack_bases
+    from kevlar_tpu.ops import novel_ops
+
+    rng = np.random.default_rng(5)
+    L, B, NB, TS, casemin, ctrlmax = 48, 16, 2, 2003, 3, 1
+    genome = rng.integers(0, 4, size=400, dtype=np.uint8)
+
+    def mkstack():
+        starts = rng.integers(0, len(genome) - L, size=(NB, B))
+        return genome[starts[..., None] + np.arange(L)]
+
+    stacks = [mkstack(), mkstack(), mkstack()]
+    stacks[0][1, 3, 10:13] = (stacks[0][1, 3, 10:13] + 1) % 4  # case-only
+    lens = np.full((NB, B), L, np.int32)
+    hosts = []
+    for st in stacks:
+        sk = Sketch(KSIZE, TS, 4, counter_bits=8, backend='host')
+        sk.consume_batch_stack(st)
+        hosts.append(sk)
+    packed = [pack_bases(st) for st in stacks]
+    outs, case_tables, ctrl_tables = novel_ops.count_and_screen_stack_packed(
+        jnp.asarray(packed[0][0]), jnp.asarray(packed[0][1]),
+        tuple(jnp.asarray(p) for p, _ in packed[1:]),
+        tuple(jnp.asarray(b) for _, b in packed[1:]),
+        jnp.asarray(lens), L=L, ksize=KSIZE, tablesize=TS, ntables=4,
+        maxcount=255, casemin=casemin, ctrlmax=ctrlmax)
+    for got, host in zip((case_tables,) + tuple(ctrl_tables), hosts):
+        np.testing.assert_array_equal(np.asarray(got), host.tables)
+
+    h1, h2, valid = dna.kmer_hashes(stacks[0].reshape(NB * B, L), KSIZE)
+    counts = [h._host_counts(h1, h2) for h in hosts]
+    want = (valid & (counts[0] >= casemin) & (counts[1] <= ctrlmax)
+            & (counts[2] <= ctrlmax)).reshape(NB, -1)
+    hit_idx, hit_abunds, n_hits, _, _ = (np.asarray(x) for x in outs)
+    assert want.any()
+    for b in range(NB):
+        idx = np.flatnonzero(want[b])
+        assert n_hits[b] == len(idx)
+        np.testing.assert_array_equal(hit_idx[b, :len(idx)], idx)
+        np.testing.assert_array_equal(
+            hit_abunds[b, :, :len(idx)],
+            np.stack([c.reshape(NB, -1)[b, idx] for c in counts]))
+
+
 def test_novel_small_batches_match_one_batch(trio, trio_sketches):
     """Stacked-dispatch batching (8-deep flush + partial tail + shape-change
     flushes) must produce exactly the same annotated records, in the same

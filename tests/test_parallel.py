@@ -207,8 +207,9 @@ def test_sharded_sketch_at_scale_proxy():
 
     Sizing contract being modeled (docs/sharding.md): the reference
     recommends 10-20 GB/sample sketches for human 30x WGS
-    (reference docs/tutorial.rst:51); on 16 GB-HBM chips that is 1-2
-    devices per sample, and a 72 GB uncorrected-read sketch shards over 8.
+    (reference docs/tutorial.rst:51); on an 80 GB card (60 GB for JAX)
+    that is one device per sample, and a 72 GB uncorrected-read sketch
+    shards over 2 or more.
     This proxy keeps the same shards-of-one-table structure at 1/128
     scale so the test fits CI RAM.
     """

@@ -206,12 +206,10 @@ def test_packed_counter_storage_matches_host():
 
 
 def test_consume_hashes_planar_subbyte_exact():
-    """The per-batch fused consume (_consume_hashes, the accelerator-side
-    branch of consume_batch_stack*) keeps sub-byte rows in the PLANAR
-    layout to avoid the [nbytes, cpb] tiled-layout blowup that OOMed a
-    120M-bucket 4-bit table on TPU; the planar index remap must be a
-    bijection, preserve saturation, and leave the pad nibble/bits of an
-    odd tablesize untouched."""
+    """The per-batch consume (_consume_hashes, behind consume_batch and the
+    filter recount) keeps sub-byte rows in the PLANAR layout; the planar
+    index remap must be a bijection, preserve saturation, and leave the pad
+    nibble/bits of an odd tablesize untouched."""
     import numpy as np
     import jax.numpy as jnp
     from kevlar_tpu.ops import sketch_ops, hashing
@@ -239,6 +237,39 @@ def test_consume_hashes_planar_subbyte_exact():
                 got = np.asarray(sketch_ops.unpack_counter_row(
                     got_tables[t], bits, tablesize))
                 assert np.array_equal(got, np.minimum(rounds * exp, maxc))
+
+
+@pytest.mark.parametrize('packed_wire', [False, True],
+                         ids=['raw-bases', '2bit-wire'])
+@pytest.mark.parametrize('bits', [8, 4, 1])
+def test_stacked_consume_matches_host_backend(bits, packed_wire):
+    """The stacked consume count.py runs (int32 accumulator over a scan of
+    batches, saturated once per stack) equals Sketch(backend='host') at
+    every counter width, over stacks with duplicate k-mers past the
+    saturation point and an odd tablesize."""
+    from kevlar_tpu.batch import pack_bases
+    from kevlar_tpu.ops import sketch_ops
+
+    rng = np.random.default_rng(bits)
+    NB, B, L, k, tablesize = 3, 16, 48, 15, 1001
+    stack = rng.integers(0, 4, size=(NB, B, L), dtype=np.uint8)
+    stack[:, :14] = stack[0, 0]         # 42 copies of one read per stack
+    stack[1, 15, 20] = 4                # an N drops the windows over it
+    dev = Sketch(k, tablesize, 4, counter_bits=bits)
+    host = Sketch(k, tablesize, 4, counter_bits=bits, backend='host')
+    for _ in range(7):                  # 294 copies: past every maxcount
+        if packed_wire:
+            packed, bad = pack_bases(stack)
+            dev.tables = sketch_ops.consume_batch_stack_packed(
+                dev.tables, packed, bad, L=L, ksize=k,
+                maxcount=dev.maxcount, counter_bits=bits,
+                tablesize=tablesize)
+            dev._invalidate()
+        else:
+            dev.consume_batch_stack(stack)
+        host.consume_batch_stack(stack)
+    assert host.tables.max() == dev.maxcount
+    np.testing.assert_array_equal(dev._host(), host.tables)
 
 
 def test_process_cache_serves_just_saved_sketch(tmp_path):

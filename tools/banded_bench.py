@@ -2,11 +2,9 @@
 
 The reference's banding use-case (/root/reference/docs/banding.rst:4-6) is
 counting memory: N passes at 1/N table memory each.  This driver runs a
-trio whose aggregate sketch demand EXCEEDS practical single-chip HBM
-(default: 300 Mb genome at 30x with uncorrected-read-class sizing — the
-reference's tutorial recommends 36-72 GB/sample for human WGS, i.e.
-~4-7 GB/sample at 1/10 scale; three samples plus the reference table
-would not fit a 16 GB chip unbanded) through the complete banded
+trio with uncorrected-read-class sketch sizing (default: 300 Mb genome at
+30x — the reference's tutorial recommends 36-72 GB/sample for human WGS,
+i.e. ~4-7 GB/sample at 1/10 scale) through the complete banded
 pipeline:
 
   per band:  count case/mother/father   (--num-bands N --band i)
@@ -23,7 +21,7 @@ Per-band resident table bytes, peak RSS, and (when the backend exposes
 it) device memory are recorded to show the 1/N memory contract.
 
 Usage: python tools/banded_bench.py [--genome-size 300000000]
-       [--num-bands 4] [--sample-mem 4G] [--out BENCH_BANDED_TPU.json]
+       [--num-bands 4] [--sample-mem 4G] [--out BENCH_BANDED.json]
        (smoke: --genome-size 5000000 --sample-mem 64M)
 """
 
@@ -87,7 +85,7 @@ def main():
     ap.add_argument('--skip-sim', action='store_true',
                     help='workdir already holds genome.fa/truth.vcf/*.fq')
     ap.add_argument('--out', default=os.path.join(REPO,
-                                                  'BENCH_BANDED_TPU.json'))
+                                                  'BENCH_BANDED.json'))
     args = ap.parse_args()
 
     N = args.num_bands

@@ -2,7 +2,7 @@
 
 Times, in isolation and at the main bench's shapes:
   1. H2D of a packed read stack
-  2. the hash computation alone (VPU-bound)
+  2. the hash computation alone
   3. the full consume dispatch (hash + 4-table scatter-add)
   4. a sort-aggregate consume variant: one sort of the batch's hash
      stream + segment-sum, then scatter unique buckets once (coverage

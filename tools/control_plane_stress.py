@@ -18,8 +18,8 @@ Prints one JSON line; writes CONTROL_PLANE.json next to the repo root.
 
 Usage: python tools/control_plane_stress.py [--scale 40]
        (host-only workloads; KEVLAR_PLATFORM=cpu is forced so the device
-        label-prop kernel runs on the CPU backend — its TPU dispatch is
-        the same program)
+        label-prop kernel runs on the CPU backend — the same program as on
+        an accelerator)
 """
 
 import argparse

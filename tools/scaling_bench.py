@@ -1,10 +1,12 @@
-"""Multi-device scaling measurement for the sharded consume+screen path.
+"""Multi-device scaling proxy for the sharded consume+screen path.
 
-The reference scales with k-mer banding: N serial passes, each counting
-1/N of the hash space (/root/reference/docs/banding.rst:4-6), scattered
-over processes by Snakemake.  The TPU-native replacement is a hash-sharded
-sketch over a ('data', 'shard') mesh; this tool MEASURES that path on the
-virtual CPU mesh (real multi-chip hardware is unavailable here):
+A CPU-mesh and Gloo proxy: it never runs on the GPU, and its numbers are
+CPU timings, not device metrics.  The reference scales with k-mer banding:
+N serial passes, each counting 1/N of the hash space
+(reference docs/banding.rst:4-6), scattered over processes by
+Snakemake.  The device replacement is a hash-sharded sketch over a
+('data', 'shard') mesh; this tool exercises that path on virtual CPU
+devices:
 
 1. **Shard-axis scaling** (1/2/4/8 virtual CPU devices, one process) at a
    constant total batch (>=64k reads/rep — amortizing sizes, so dispatch
@@ -15,8 +17,8 @@ virtual CPU mesh (real multi-chip hardware is unavailable here):
      (parallel/sharded.py:_route_consume).  Total compute is CONSTANT in
      n, so on a serialized virtual mesh the ideal wall is flat:
      ``routed_strong_efficiency = wall_1 / wall_n`` (1.0 = no routing
-     overhead; on n real chips the same program's per-chip wall is
-     ~wall_n/n plus ICI time).
+     overhead; on n real devices the same program's per-device wall is
+     ~wall_n/n plus collective time).
    - ``replicate`` (fallback): every shard hashes every k-mer and drops
      out-of-range indices — n-fold redundant compute.  Reported with the
      legacy ``serialized_efficiency = n * wall_1 / wall_n`` (1.0 = the
@@ -36,14 +38,14 @@ virtual CPU mesh (real multi-chip hardware is unavailable here):
    devices would be meaningless).
 
 3. **Multi-process (Gloo) runs**: the same shard-axis program with the
-   mesh spanning 2 x 4 and 4 x 2 OS processes x devices — the DCN analog
-   of 2/4 TPU hosts; overhead vs the single-process 8-device run is the
-   cross-host cost.
+   mesh spanning 2 x 4 and 4 x 2 OS processes x devices, standing in for
+   2/4 hosts; overhead vs the single-process 8-device run is the
+   cross-process cost.
 
-Writes SCALING.json next to this script.  For real multi-host TPU
-hardware, run the same worker under jax.distributed on every host:
+Writes SCALING.json next to this script.  For several hosts, run the same
+worker under jax.distributed on every host:
 
-    # on every host of a 2-host slice (coordinator = host 0):
+    # on every host (coordinator = host 0):
     python tools/scaling_bench.py --worker --ndev 0 --n-data 1 --n-shard 8 \
         --distributed COORD_IP:8476 NPROC PID --out host_scaling.json
 

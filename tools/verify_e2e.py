@@ -7,7 +7,7 @@ criterion: PASS calls == exactly the de novo truth rows (position, REF,
 ALT), case ALTABUND ~ coverage, controls 0, LIKESCORE > 0.
 
 Usage: KEVLAR_PLATFORM=cpu python tools/verify_e2e.py   (host backend,
-~1-2 min) or without the env var for a real-TPU drive (compile-dominated).
+~1-2 min) or without the env var on the accelerator.
 Prints VERIFY_PASS or VERIFY_FAIL and exits nonzero on failure.
 """
 
